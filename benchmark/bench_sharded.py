@@ -1,16 +1,13 @@
-"""Multi-chip weak-scaling benchmark (ready for real TPU pods).
+"""Multi-GPU weak-scaling benchmark of the sharded step.
 
 Measures the sharded step's throughput (particle-pushes/s and
 grid-points*steps/s) at increasing device counts with a FIXED per-device
 tile, reporting scaling efficiency vs the single-device rate — the
-BASELINE.md north-star metric (>=80% 1 -> 2 hosts).
+BASELINE.md north-star metric (>=80% 1 -> 2 hosts).  By default it uses
+every GPU of the host; ``--cpu=N`` runs it on an N-device virtual CPU mesh
+(correctness and wiring only: those times are not device numbers).
 
-This environment exposes one real chip, so honest ICI numbers cannot be
-produced here (docs/PERF.md, Multi-chip); the script is the measurement
-harness for when a pod slice is attached.  `--cpu N` runs it functionally
-on an N-device virtual CPU mesh (correctness/wiring, not performance).
-
-Run:  python benchmark/bench_sharded.py [--tile 768] [--cpu 8]
+Run:  python benchmark/bench_sharded.py [--tile=768] [--cpu=8]
 """
 
 import json
@@ -37,15 +34,12 @@ def main():
 
     import jax
 
-    if cpu:
-        jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/picles_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
     from bench import build
+    from picles_tpu.utils.compile_cache import enable_compile_cache
+
+    if not cpu and jax.default_backend() != "gpu":
+        raise SystemExit("no GPU found; pass --cpu=N for a virtual mesh")
+    enable_compile_cache()
     from picles_tpu.parallel.sharded import ShardedWaveGrowth2D, make_mesh
 
     devices = jax.devices()
@@ -65,7 +59,7 @@ def main():
     for d in ladder:
         sx, sy = mesh_shape(d)
         nx, ny = tile * sx, tile * sy
-        model = build(nx, ny, advance_mode="xla" if cpu else "pallas")
+        model = build(nx, ny)
         mesh = make_mesh(devices=devices[:d], shape=(sx, sy))
         sharded = ShardedWaveGrowth2D(model, mesh)
         ms = sharded.init_state()

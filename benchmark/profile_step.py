@@ -1,4 +1,4 @@
-"""Phase breakdown of one model step on the real TPU.
+"""Phase breakdown of one model step on the GPU.
 
 Times (by scan-length difference, like bench.py) jitted sub-pipelines:
   A. advance kernel only
@@ -41,6 +41,8 @@ def timeit(fn, state, n_small, n_big, reps=3):
 
 
 def main():
+    if jax.default_backend() != "gpu":
+        raise SystemExit("profile_step.py times the GPU; no GPU found")
     nx = ny = int(sys.argv[1]) if len(sys.argv) > 1 else 768
     model = build(nx, ny)
     ms0 = model.init_state()

@@ -1,4 +1,4 @@
-"""Global-scale tripolar demo on the real TPU (T03_PIC_tripolar analog,
+"""Global-scale tripolar demo on the GPU (T03_PIC_tripolar analog,
 reference tests/T03_PIC_tripolar_{aqua,land}.jl at production resolution).
 
 Builds the synthetic tripolar supergrid at ~1 degree (720x360 supergrid,
@@ -47,18 +47,10 @@ def build_grid():
     return dataclasses.replace(grid, mask=jnp.asarray(np.asarray(total, np.int32)))
 
 
-def main():
-    outdir = next((a for a in sys.argv[1:] if not a.startswith("--")), None)
-    hours = 24.0
-    for a in sys.argv[1:]:
-        if a.startswith("--hours="):
-            hours = float(a.split("=", 1)[1])
-
-    DT = 1200.0
+def build_model(DT=1200.0, hours=24.0, advance_mode="auto",
+                solver="bosh3", scatter_mode="dense"):
+    """The 1 deg tripolar model: zonal jets, carried dt, symmetric halo 3."""
     grid = build_grid()
-    nx, ny = grid.stats.nx, grid.stats.ny
-    print(f"grid: {nx}x{ny} tripolar, "
-          f"{int(np.sum(np.asarray(grid.mask) == 1))} ocean nodes")
 
     def u(x, y, t):
         y = jnp.asarray(y)
@@ -72,13 +64,28 @@ def main():
     ws = pt.FetchRelations.MinimalWindsea(10.0, 10.0, DT)
     sett = pt.ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
                           timestep=DT, total_time=hours * 3600.0, dt=1e-3,
-                          dtmin=1e-4, force_dtmin=True)
-    model = pt.WaveGrowth2D(
+                          dtmin=1e-4, force_dtmin=True, solver=solver)
+    return pt.WaveGrowth2D(
         grid, winds, sett,
         config=pt.WaveGrowth2DConfig(periodic_boundary=True,
-                                     advance_mode="pallas",
-                                     scatter_mode="dense_pallas",
+                                     advance_mode=advance_mode,
+                                     scatter_mode=scatter_mode,
                                      dt_reset_mode="carry"))
+
+
+def main():
+    outdir = next((a for a in sys.argv[1:] if not a.startswith("--")), None)
+    hours = 24.0
+    for a in sys.argv[1:]:
+        if a.startswith("--hours="):
+            hours = float(a.split("=", 1)[1])
+
+    DT = 1200.0
+    model = build_model(DT, hours)
+    grid = model.grid
+    nx, ny = grid.stats.nx, grid.stats.ny
+    print(f"grid: {nx}x{ny} tripolar, "
+          f"{int(np.sum(np.asarray(grid.mask) == 1))} ocean nodes")
 
     # --- step timing (scan-length difference; fixed sync overhead cancels)
     ms = model.init_state()

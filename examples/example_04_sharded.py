@@ -1,13 +1,14 @@
-"""Multi-device (sharded) run — the TPU-native answer to the reference's
+"""Multi-device (sharded) run — this build's answer to the reference's
 `Distributed.pmap` experiment (exmpl_homogenous_box_mprocess.jl,
 tests/T05_2D_distributed_particles.jl): the grid block-shards over a 2D
 device mesh, the CIC deposit's halo slabs ride `ppermute` rings between
 neighbor shards, and the whole thing drives through the same `Simulation`
 as a single-chip run.
 
-Runs on whatever devices JAX exposes (a TPU slice in production; set
+Runs on whatever devices JAX exposes (the GPUs of a host in
+production).  Set
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu
-for a virtual 8-device CPU mesh on any machine).
+for a virtual 8-device CPU mesh on any machine.
 
 Run:  python examples/example_04_sharded.py
 """

@@ -3,12 +3,13 @@
 The reference ships an experimental multi-process driver
 (`examples/exmpl_homogenous_box_mprocess.jl`: `Distributed.addprocs` +
 `pmap(advance_wrap, workers, ParticleCollection)` with a SharedArray
-State).  The TPU-native equivalent is multi-host JAX: every process owns
-a slice of the devices, `jax.distributed.initialize` joins them into one
-runtime, the grid block-shards over the GLOBAL mesh, and the step's halo
-exchange rides cross-process collectives (gloo here, ICI/DCN on real
-pods).  No SharedArray: each process only ever touches its addressable
-shards.
+State).  This build's equivalent is multi-process JAX: every process
+owns a slice of the devices, `jax.distributed.initialize` joins them into
+one runtime, the grid block-shards over the GLOBAL mesh, and the step's
+halo exchange rides cross-process collectives (gloo here, NCCL between
+GPU hosts).  The workers and the cross-check stay pinned to the CPU, so
+no process of this example opens a GPU.  No SharedArray: each process
+only ever touches its addressable shards.
 
 This script is self-launching: run it with no arguments and it spawns
 2 worker copies of itself (4 virtual CPU devices each -> a global
@@ -124,7 +125,7 @@ def _launch():
     assert np.isfinite(field).all(), "shards did not tile the global grid"
 
     # single-process cross-check (dense step, same model, same horizon)
-    _os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    _os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
     model = _build_model()

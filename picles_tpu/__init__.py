@@ -1,9 +1,9 @@
-"""PiCLES-TPU: a TPU-native Lagrangian ocean surface-wave model.
+"""PiCLES in JAX: a Lagrangian ocean surface-wave model for accelerators.
 
 A from-scratch JAX/XLA re-design of the PiCLES particle-in-cell wave model
 (Kudryavtsev et al. 2021 physics; one parametric particle per grid node;
 advance -> CIC scatter -> semi-Lagrangian remesh per model step), built for
-TPU: SoA particle state, one pure jitted step, batched adaptive ODE
+an accelerator: SoA particle state, one pure jitted step, batched adaptive ODE
 integration, dense pad-and-fold scatter, and shard_map domain decomposition
 with ppermute halo exchange.
 

@@ -1,6 +1,6 @@
 """Physics constants and ODE parameter packs.
 
-TPU-native re-implementation of the parameter layer of PiCLES
+JAX re-implementation of the parameter layer of PiCLES
 (reference: src/ParticleSystems/particle_waves_v5.jl:83-196).  All structures
 are frozen dataclasses of plain Python floats so they hash, making them usable
 as static arguments to jitted functions; the numbers themselves only enter

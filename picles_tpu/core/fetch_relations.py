@@ -1,6 +1,6 @@
 """Fetch relations and windsea initialization — pure, jit-able jnp functions.
 
-TPU-native re-implementation of the physics closures in the reference
+JAX re-implementation of the physics closures in the reference
 ``src/FetchRelations.jl``.  Every function here works elementwise on scalars
 or arrays of any shape, so the same code seeds a single particle on the host
 and reseeds a whole ``[Nx, Ny]`` grid inside the jitted model step.

@@ -80,7 +80,7 @@ def time_cosine_winds(U10: float, V10: float, period: float,
 class GriddedWinds2D:
     """Tri-linear interpolation of gridded (t, x, y) wind data.
 
-    The TPU-native replacement for Interpolations.jl linear_interpolation
+    The JAX replacement for Interpolations.jl linear_interpolation
     with periodic extrapolation (reference WindEmulator.jl:18-43): index
     coordinates are computed from the axis metadata and fed to
     ``jax.scipy.ndimage.map_coordinates`` (order=1).

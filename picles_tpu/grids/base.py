@@ -5,7 +5,7 @@ MOM6GridMesh, each a StructArray + stats + projection/correction closures;
 src/Grids/*.jl) collapses here into a single ``Grid2D`` pytree: dense per-node
 arrays (coordinates, metric spacings, mask, projection matrices, great-circle
 coefficients) plus a hashable static ``GridStats``.  Per-node *closures*
-become per-node *arrays* — the idiomatic JAX/TPU representation, directly
+become per-node *arrays* — the idiomatic JAX representation, directly
 shardable along (x, y).
 
 Mask convention (reference src/Grids/mask_utils.jl:25-55):

@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 
 class StepMetrics(NamedTuple):
-    """Per-step observability counters (the TPU analog of the reference's
+    """Per-step observability counters (the analog of the reference's
     FailedCollection bookkeeping and @info debugging)."""
 
     n_active: jnp.ndarray        # particles advanced this step
@@ -48,9 +48,10 @@ class Particles2D:
 
     True structure-of-arrays: the 5 ODE variables are separate [nx, ny]
     planes, NOT a stacked [nx, ny, 5] array — a 5-wide minor dimension
-    pads badly into TPU (8, 128) tiles and forces layout copies between
-    every fusion of the hot loop (measured ~1 ms/step of pure relayout at
-    1536^2).  Use the ``z`` property / ``from_z`` only at API boundaries.
+    forces strided access and layout copies between the fusions of the
+    hot loop, and the Pallas advance streams each plane as its own
+    contiguous lane array.  Use the ``z`` property / ``from_z`` only at
+    API boundaries.
 
     lne, cgx, cgy: [nx, ny] log-energy and mean group velocity
     px, py:        [nx, ny] positions relative to the home node in

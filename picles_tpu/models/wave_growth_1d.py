@@ -1,6 +1,6 @@
 """WaveGrowth1D — the 1D growth-curve model (B01 regression path).
 
-TPU-native re-implementation of the reference 1D stack
+JAX re-implementation of the reference 1D stack
 (src/Models/WaveGrowthModels1D.jl, src/Operators/core_1D.jl,
 src/Operators/mapping_1D.jl, TimeSteppers.jl:51-92).  Differences from 2D:
 particle state is ``[lne, cg_x, x]`` with *absolute* x in meters on a legacy

@@ -1,6 +1,6 @@
 """WaveGrowth2D — the flagship model, as one pure jitted step function.
 
-TPU-native re-design of the reference model + stepping stack
+JAX re-design of the reference model + stepping stack
 (src/Models/WaveGrowthModels2D.jl, src/Operators/mapping_2D.jl,
 src/Operators/TimeSteppers.jl, src/Simulations/run.jl:72-115).  One model
 time step ``DT`` is:
@@ -64,15 +64,18 @@ class WaveGrowth2DConfig:
     # "wind_sea" -> seed/reset from local winds; or a ParticleDefaults2D
     ode_init_type: Union[str, ParticleDefaults2D] = "wind_sea"
     boundary_type: str = "same"   # "wind_sea" | "mininmal" | "same"
-    # "auto" resolves per backend LAZILY, at step-build/trace time (each
-    # step_core call asks jax.default_backend()): the fused Pallas kernels
-    # on TPU, the XLA twins elsewhere (numerics agree to solver tolerance
-    # — cross-checked in tests and benchmark/tpu_numerics_check).  A model
+    # CIC deposit: "dense" (pad-and-fold shifted adds, deterministic) or
+    # "xla" (index scatter-add; the oracle, no halo bound)
+    scatter_mode: str = "dense"   # "dense" | "xla"
+    # "auto" resolves LAZILY, at trace time (each step_core call asks
+    # jax.default_backend()): the fused Pallas advance (Triton route) on
+    # the GPU, the XLA while_loop elsewhere (numerics agree to solver
+    # tolerance — cross-checked in tests and chip_smoke.py).  A model
     # constructed before device selection therefore compiles the right
-    # kernel family when first stepped, and ``model.config`` round-trips
-    # the user's "auto" (``model.resolved_config()`` shows what it
-    # resolves to right now).  Explicit modes always win.
-    scatter_mode: str = "auto"    # "auto" | "dense" | "dense_pallas" | "xla"
+    # advance when first stepped, and ``model.config`` round-trips the
+    # user's "auto" (``model.resolved_config()`` shows what it resolves
+    # to right now).  An explicit "pallas" off the GPU needs
+    # ``pallas_interpret=True``.
     advance_mode: str = "auto"    # "auto" | "xla" | "pallas"
     # "auto": Hairer auto_dt on every reseed/gather (reference
     # auto_dt_reset! semantics, mapping_2D.jl:91-111).  "carry": warm
@@ -80,12 +83,6 @@ class WaveGrowth2DConfig:
     # is still governed by the embedded error controller (a too-large dt is
     # rejected and shrunk), but the steady-state substep count drops ~3-5x.
     dt_reset_mode: str = "auto"   # "auto" | "carry"
-    # remesh backend: "xla" (fused selects), "pallas" (one standalone VMEM
-    # pass), or "fused" (remesh runs inside the CIC gather kernel's output
-    # pass — node planes written once, never read back; single-chip only,
-    # needs the dense_pallas deposit).  "pallas"/"fused" require
-    # dt_reset_mode="carry" (the auto-dt path needs RHS evals).
-    remesh_mode: str = "xla"
     # CIC displacement capacity in cells (dense scatter modes): an int H
     # (symmetric) or ((x_lo, x_hi), (y_lo, y_hi)) bounds.  Directional
     # regimes (e.g. constant trade winds) only displace one way, so
@@ -95,31 +92,35 @@ class WaveGrowth2DConfig:
     halo: Union[int, Tuple[Tuple[int, int], Tuple[int, int]]] = 3
     layers: int = 1
     dtype: type = jnp.float32
-    pallas_block_x: int = 0         # 0 = auto (VMEM-budget sized)
     pallas_interpret: bool = False  # interpreter mode (CPU testing)
 
 
 def _resolve_auto_modes(cfg: "WaveGrowth2DConfig") -> "WaveGrowth2DConfig":
-    """Resolve ``"auto"`` kernel backends against the current default
-    backend (called lazily from ``step_core`` / the step tails, NOT at
-    model construction — see ``WaveGrowth2D.resolved_config``).
+    """Resolve ``advance_mode="auto"`` against the current default backend
+    (called lazily from ``step_core``, NOT at model construction — see
+    ``WaveGrowth2D.resolved_config``).
 
-    On TPU the fused Pallas advance + one-pass CIC gather are 5.5x / 1.5x
-    faster than the XLA twins (docs/PERF.md); on CPU (the test mesh) and
-    other backends the XLA paths are the ones that compile.  Explicit
-    modes always win — ``"auto"`` only fills the unspecified default.
+    The Triton advance compiles only for the GPU, where it beats the XLA
+    while_loop end to end (docs/PERF.md); everywhere else ``"auto"`` is
+    the XLA loop.  An explicit ``"pallas"`` that cannot compile here
+    raises instead of silently interpreting or falling back.
     """
-    import dataclasses as _dc
-
-    import jax as _jax
-
-    on_tpu = _jax.default_backend() == "tpu"
-    upd = {}
+    backend = jax.default_backend()
+    if cfg.advance_mode not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown advance_mode {cfg.advance_mode!r}")
+    if cfg.scatter_mode not in ("dense", "xla"):
+        raise ValueError(f"unknown scatter_mode {cfg.scatter_mode!r}")
     if cfg.advance_mode == "auto":
-        upd["advance_mode"] = "pallas" if on_tpu else "xla"
-    if cfg.scatter_mode == "auto":
-        upd["scatter_mode"] = "dense_pallas" if on_tpu else "dense"
-    return _dc.replace(cfg, **upd) if upd else cfg
+        return dataclasses.replace(
+            cfg, advance_mode="pallas" if backend == "gpu" else "xla")
+    if (cfg.advance_mode == "pallas" and backend != "gpu"
+            and not cfg.pallas_interpret):
+        raise ValueError(
+            'advance_mode="pallas" is a Triton kernel and compiles only for '
+            f"the GPU (default backend here: {backend!r}); pass "
+            'pallas_interpret=True to run it in the interpreter, or use '
+            'advance_mode="auto" / "xla"')
+    return cfg
 
 
 class WaveGrowth2D(StepDrivers):
@@ -182,11 +183,6 @@ class WaveGrowth2D(StepDrivers):
                               else jnp.asarray(FR.MinimalState(2.0, 2.0, DT),
                                                config.dtype))
 
-        # concrete copies for pallas-kernel scalar baking (indexing the
-        # device array inside a trace would yield tracers)
-        self._minimal_e = float(self.minimal_state[0])
-        self._minimal_m2 = float(self.minimal_state[1])
-
         self.solver = SolverConfig(abstol=ode_settings.abstol,
                                    reltol=ode_settings.reltol,
                                    dtmin=ode_settings.dtmin,
@@ -220,7 +216,7 @@ class WaveGrowth2D(StepDrivers):
         self.aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
 
         # spatially uniform projection/great-circle coefficient (regular
-        # Cartesian boxes): bake as scalars into the pallas kernels
+        # Cartesian boxes): bake as scalars into the Pallas advance
         pj = np.asarray(grid.proj).reshape(-1, 4)
         pcn = np.asarray(grid.pc).reshape(-1)
         if (np.all(pj == pj[0]) and np.all(pcn == pcn[0])):
@@ -297,23 +293,6 @@ class WaveGrowth2D(StepDrivers):
                 grid.x, grid.y, t0, float(self.settings.timestep))
             return u_k, v_k, fields
         return self.winds.u, self.winds.v, ()
-
-    def _auto_dt_pallas_fits(self, grid, ny: int) -> bool:
-        """Whether the row-tiled auto-dt kernel fits VMEM at this width.
-
-        ``advance_pallas`` auto-engages 2D column tiling on ultra-wide
-        grids, but the auto-dt and remesh kernels are row-tiled only —
-        on a grid too wide for them the DEFAULT config (advance "auto"
-        -> pallas, dt_reset_mode "auto") must fall back to the XLA
-        Hairer estimate instead of raising from ``auto_block_x``.
-        Explicitly-requested kernels (``pallas_block_x`` set,
-        remesh_mode "pallas"/"fused") still fail loudly."""
-        from ..ops.pallas_util import fits_row_tiling
-
-        if self.config.pallas_block_x > 0:
-            return True  # user-pinned block: let the kernel validate it
-        n_wf = 0 if self.gridded_winds is None else 4 + 3 * self._wind_B
-        return fits_row_tiling(ny, 64 + 2 * n_wf)
 
     # ------------------------------------------------------------------
     # seeding
@@ -423,7 +402,6 @@ class WaveGrowth2D(StepDrivers):
                                   P.t, P.dt, adv,
                                   grid.x, grid.y,
                                   self.uniform_proj or grid.proj, grid.pc,
-                                  block_x=cfg.pallas_block_x,
                                   wind_fields=wind_fields,
                                   interpret=cfg.pallas_interpret)
             res_c = (pres.lne, pres.cgx, pres.cgy, pres.x, pres.y)
@@ -482,29 +460,10 @@ class WaveGrowth2D(StepDrivers):
         # ---------------- SCATTER ----------------
         scatter_on = (on & active & ~failed) | (on & bsrc)
         e, mx, my = TR.particle_to_node(lne, cgx, cgy)
-        if cfg.remesh_mode == "fused":
-            if cfg.dt_reset_mode != "carry":
-                raise ValueError('remesh_mode="fused" requires '
-                                 'dt_reset_mode="carry"')
-            if cfg.scatter_mode != "dense_pallas":
-                raise ValueError(
-                    'remesh_mode="fused" IS the dense_pallas deposit (the '
-                    "remesh runs inside the gather kernel); set "
-                    'scatter_mode="dense_pallas" explicitly — resolved '
-                    f'config has scatter_mode={cfg.scatter_mode!r}.')
-            if scatter_fn is not None:
-                raise ValueError(
-                    'remesh_mode="fused" is single-chip only: the sharded '
-                    "deposit must halo-exchange between accumulate and "
-                    'remesh. Use remesh_mode="xla" under ShardedWaveGrowth2D.')
-            return self._fused_scatter_remesh_tail(
-                ms, grid, active, boundary, lne, cgx, cgy, px, py, t, dt, on,
-                (e, mx, my), scatter_on, adv, failed, nan_mask, inf_mask,
-                emax_mask, relight, res_naccept, psum_axes)
         if scatter_fn is None:
             (e_n, mx_n, my_n), sc_stats = pic.scatter_channels(
                 px, py, (e, mx, my), scatter_on, grid.stats, cfg.halo,
-                cfg.scatter_mode, interpret=cfg.pallas_interpret)
+                cfg.scatter_mode)
         else:
             S_sh, sc_stats = scatter_fn(px, py,
                                         jnp.stack([e, mx, my], axis=-1),
@@ -512,14 +471,6 @@ class WaveGrowth2D(StepDrivers):
             e_n, mx_n, my_n = S_sh[..., 0], S_sh[..., 1], S_sh[..., 2]
 
         # ---------------- REMESH ----------------
-        if cfg.remesh_mode == "pallas":
-            if cfg.dt_reset_mode != "carry":
-                raise ValueError('remesh_mode="pallas" requires '
-                                 'dt_reset_mode="carry"')
-            return self._remesh_pallas_tail(
-                ms, grid, active, boundary, lne, cgx, cgy, px, py, t, dt, on,
-                (e_n, mx_n, my_n), adv, failed, nan_mask, inf_mask,
-                emax_mask, relight, sc_stats, res_naccept, psum_axes)
         # winds at the pre-tick clock time (TimeSteppers.jl:144-151)
         u_i, v_i = self.winds(grid.x, grid.y,
                               jnp.broadcast_to(ms.time, t.shape))
@@ -567,25 +518,6 @@ class WaveGrowth2D(StepDrivers):
             # the error controller re-shrinks it if the reseeded state needs
             # smaller steps.  Skips the auto_dt RHS evaluations entirely.
             dt = jnp.clip(dt, sett.dtmin, DT)
-        elif cfg.advance_mode == "pallas" and self._auto_dt_pallas_fits(
-                grid, t.shape[-1]):
-            from ..ops.advance_pallas import auto_dt_pallas
-            from ..ops.rhs import make_rhs_consts
-
-            consts = make_rhs_consts(gamma=self.constants.gamma,
-                                     constants=self.constants,
-                                     params=self.params)
-            u_k, v_k, wind_fields = self._pallas_wind(grid, ms.time)
-            dt_auto = auto_dt_pallas(u_k, v_k, consts,
-                                     self.flags, t, (lne, cgx, cgy, px, py),
-                                     grid.x, grid.y,
-                                     self.uniform_proj or grid.proj, grid.pc,
-                                     abstol=sett.abstol, reltol=sett.reltol,
-                                     order=self._rk_order,
-                                     block_x=cfg.pallas_block_x,
-                                     wind_fields=wind_fields,
-                                     interpret=cfg.pallas_interpret)
-            dt = jnp.where(was_reset, jnp.clip(dt_auto, sett.dtmin, DT), dt)
         else:
             dt_auto = auto_dt(self.rhs,
                               t, jnp.stack([lne, cgx, cgy, px, py], axis=-1),
@@ -617,7 +549,7 @@ class WaveGrowth2D(StepDrivers):
                        emax_mask, relight, gather, reseed, off, clamped,
                        naccept) -> StepMetrics:
         """Per-step counters, psum/pmax-reduced across the mesh when the
-        step runs inside shard_map (shared by all three step tails)."""
+        step runs inside shard_map)."""
         if psum_axes:
             def _count(x):
                 return jax.lax.psum(jnp.sum(x).astype(jnp.int32), psum_axes)
@@ -641,102 +573,6 @@ class WaveGrowth2D(StepDrivers):
             n_gather=_count(gather), n_reseed=_count(reseed),
             n_off=_count(off), n_clamped=n_cl,
             substeps_max=_maxred(naccept))
-
-    def _fused_scatter_remesh_tail(self, ms, grid, active, boundary,
-                                   lne, cgx, cgy, px, py, t, dt, on,
-                                   charge, scatter_on, adv, failed,
-                                   nan_mask, inf_mask, emax_mask, relight,
-                                   res_naccept, psum_axes):
-        """Fused deposit+remesh step tail (remesh_mode="fused"): the CIC
-        gather's per-tile accumulators feed the remesh branch table in
-        VMEM — node planes are written once, never read back."""
-        from ..ops.pic_pallas import scatter_remesh_fused
-        from ..ops.remesh_pallas import GATHER_BIT, OFF_BIT, RESEED_BIT
-
-        cfg = self.resolved_config()
-        sett = self.settings
-        u_k, v_k, wind_fields = self._pallas_wind(grid, ms.time)
-        d = self.defaults
-        defaults = None if d is None else (d.lne, d.cg_x, d.cg_y)
-        if self._boundary_differs:
-            bd = self.boundary_defaults
-            bdefaults = None if bd is None else (bd.lne, bd.cg_x, bd.cg_y)
-        else:
-            bdefaults = "same"
-
-        node_state, rm, sc_stats = scatter_remesh_fused(
-            u_k, v_k, defaults, bdefaults, self._boundary_source,
-            float(sett.timestep), self._minimal_e, self._minimal_m2,
-            float(sett.wind_min_squared), float(sett.dtmin),
-            px, py, charge, scatter_on,
-            lne, cgx, cgy, px, py, dt, on, active, boundary,
-            grid.x, grid.y, ms.time, grid.stats, cfg.halo,
-            wind_fields=wind_fields, interpret=cfg.pallas_interpret,
-            clip_dt=bool(sett.adaptive))
-
-        br = rm.branch
-        metrics = self._build_metrics(
-            psum_axes, adv=adv, failed=failed, nan_mask=nan_mask,
-            inf_mask=inf_mask, emax_mask=emax_mask, relight=relight,
-            gather=(br & GATHER_BIT) != 0, reseed=(br & RESEED_BIT) != 0,
-            off=((br & OFF_BIT) != 0) & on, clamped=sc_stats.clamped,
-            naccept=res_naccept)
-
-        particles = Particles2D(lne=rm.lne, cgx=rm.cgx, cgy=rm.cgy,
-                                px=rm.px, py=rm.py, t=t, dt=rm.dt, on=rm.on)
-        S = jnp.stack(node_state, axis=-1)
-        DT = jnp.asarray(sett.timestep, cfg.dtype)
-        return ModelState2D(state=S, particles=particles,
-                            time=ms.time + DT,
-                            iteration=ms.iteration + 1,
-                            metrics=metrics)
-
-    def _remesh_pallas_tail(self, ms, grid, active, boundary,
-                            lne, cgx, cgy, px, py, t, dt, on,
-                            node_state, adv, failed, nan_mask, inf_mask,
-                            emax_mask, relight, sc_stats, res_naccept,
-                            psum_axes):
-        """Fused-remesh step tail (remesh_mode="pallas")."""
-        from ..ops.remesh_pallas import (GATHER_BIT, OFF_BIT, RESEED_BIT,
-                                         remesh_pallas)
-
-        cfg = self.resolved_config()
-        sett = self.settings
-        u_k, v_k, wind_fields = self._pallas_wind(grid, ms.time)
-        d = self.defaults
-        defaults = None if d is None else (d.lne, d.cg_x, d.cg_y)
-        if self._boundary_differs:
-            bd = self.boundary_defaults
-            bdefaults = None if bd is None else (bd.lne, bd.cg_x, bd.cg_y)
-        else:
-            bdefaults = "same"
-        rm = remesh_pallas(
-            u_k, v_k, defaults, float(sett.timestep),
-            self._minimal_e, self._minimal_m2,
-            float(sett.wind_min_squared), float(sett.dtmin),
-            node_state, lne, cgx, cgy, px, py, dt, on, active, boundary,
-            grid.x, grid.y, ms.time, wind_fields=wind_fields,
-            block_x=cfg.pallas_block_x, interpret=cfg.pallas_interpret,
-            boundary_defaults=bdefaults,
-            boundary_source=self._boundary_source,
-            clip_dt=bool(sett.adaptive))
-
-        br = rm.branch
-        metrics = self._build_metrics(
-            psum_axes, adv=adv, failed=failed, nan_mask=nan_mask,
-            inf_mask=inf_mask, emax_mask=emax_mask, relight=relight,
-            gather=(br & GATHER_BIT) != 0, reseed=(br & RESEED_BIT) != 0,
-            off=((br & OFF_BIT) != 0) & on, clamped=sc_stats.clamped,
-            naccept=res_naccept)
-
-        particles = Particles2D(lne=rm.lne, cgx=rm.cgx, cgy=rm.cgy,
-                                px=rm.px, py=rm.py, t=t, dt=rm.dt, on=rm.on)
-        S = jnp.stack(node_state, axis=-1)
-        DT = jnp.asarray(sett.timestep, cfg.dtype)
-        return ModelState2D(state=S, particles=particles,
-                            time=ms.time + DT,
-                            iteration=ms.iteration + 1,
-                            metrics=metrics)
 
     # ------------------------------------------------------------------
     # layers (reference `layers` State dimension, WaveGrowthModels2D.jl:112-119;

@@ -1,6 +1,6 @@
 """Particle-in-Cell scatter/gather kernels — the second hot kernel family.
 
-TPU-native re-implementation of the reference PIC engine
+JAX re-implementation of the reference PIC engine
 (src/ParticleInCell.jl).  Two interchangeable implementations:
 
 ``scatter_dense`` (default): every particle lives at its home node ``(i, j)``
@@ -10,7 +10,7 @@ ParticleInCell.jl:149-157).  Because relative displacements are bounded by a
 static halo ``H``, the scatter becomes a sum of (2H+1)^2 statically-shifted
 dense adds into a padded ``[nx+2H, ny+2H]`` accumulator, followed by a
 boundary *fold* of the halo slabs (periodic wrap / non-periodic drop /
-tripolar north-seam flip).  Everything is static-shape VPU work — no XLA
+tripolar north-seam flip).  Everything is static-shape elementwise work — no XLA
 scatter, deterministic, and the halo slabs are exactly the payloads the
 sharded version exchanges with ``ppermute``.
 
@@ -242,36 +242,21 @@ def scatter_xla(xrel: jnp.ndarray, yrel: jnp.ndarray, charge: jnp.ndarray,
 
 
 def scatter(xrel, yrel, charge, active, stats: GridStats, halo,
-            mode: str = "dense", interpret: bool = False):
+            mode: str = "dense"):
     if mode == "dense":
         return scatter_dense(xrel, yrel, charge, active, stats, halo)
-    if mode == "dense_pallas":
-        from .pic_pallas import scatter_core_channels_pallas
-
-        planes, st = scatter_core_channels_pallas(
-            xrel, yrel, charge, active, stats, halo, interpret=interpret)
-        return jnp.stack(planes, axis=-1), st
     if mode == "xla":
         return scatter_xla(xrel, yrel, charge, active, stats, halo)
     raise ValueError(f"unknown scatter mode {mode!r}")
 
 
 def scatter_channels(xrel, yrel, chans: Tuple[jnp.ndarray, ...], active,
-                     stats: GridStats, halo, mode: str = "dense",
-                     interpret: bool = False):
+                     stats: GridStats, halo, mode: str = "dense"):
     """Channel-plane variant of ``scatter``: takes and returns per-channel
-    [nx, ny] arrays instead of a stacked [nx, ny, C] (the models' hot path —
-    a C-wide minor dim pads badly into TPU (8, 128) tiles)."""
-    if mode == "dense_pallas":
-        from .pic_pallas import scatter_core_channels_pallas
-
-        # single gather pass with boundary-folded inputs: no padded
-        # accumulator, no post-fold plane passes
-        return scatter_core_channels_pallas(xrel, yrel, chans, active,
-                                            stats, halo,
-                                            interpret=interpret)
+    [nx, ny] arrays instead of a stacked [nx, ny, C] (the models' hot
+    path keeps per-channel planes)."""
     S, st = scatter(xrel, yrel, jnp.stack(chans, axis=-1), active, stats,
-                    halo, mode, interpret)
+                    halo, mode)
     return tuple(S[..., i] for i in range(len(chans))), st
 
 

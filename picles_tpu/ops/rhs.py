@@ -1,6 +1,6 @@
 """Particle-wave ODE right-hand sides (Kudryavtsev et al. 2021 closures).
 
-TPU-native re-implementation of the reference ``particle_equations`` factory
+JAX re-implementation of the reference ``particle_equations`` factory
 (src/ParticleSystems/particle_waves_v5.jl:382-563 for 2D, :584-652 for 1D).
 
 Design: the reference builds one mutable closure per particle; here the RHS is
@@ -76,8 +76,8 @@ def H_beta(alpha, p):
 def Delta_beta(alpha):
     """Peak-shift window 1 - 1.25 sech^2(10 (alpha - 0.85)) (reference :275).
 
-    sech is written via exponentials (stable for large |x|) because
-    jnp.cosh has no Pallas TPU lowering."""
+    sech is written via one exponential: stable for large |x|, and the
+    same elementwise ops lower inside the Pallas advance kernel."""
     ax = jnp.abs(10.0 * (alpha - ALPHA_THRESH))
     e = jnp.exp(-ax)
     sech = 2.0 * e / (1.0 + e * e)

@@ -1,4 +1,4 @@
-"""Batched adaptive Tsit5 ODE integrator for TPU.
+"""Batched adaptive Tsit5 ODE integrator.
 
 This replaces the reference's per-particle mutable ``ODEIntegrator`` objects
 (DifferentialEquations.jl ``AutoTsit5(Rosenbrock23())`` with abstol=1e-4,
@@ -160,7 +160,7 @@ def auto_dt(rhs: Callable, t, z, aux, *, abstol: float = 1e-4,
             max_dt: float = 3600.0) -> jnp.ndarray:
     """Hairer-style automatic initial step size, vectorized per lane.
 
-    The TPU analog of DifferentialEquations.jl's ``auto_dt_reset!`` used by
+    The batched analog of DifferentialEquations.jl's ``auto_dt_reset!`` used by
     the reference after every particle reset (mapping_2D.jl:91-111).
     """
     tiny = jnp.asarray(1e-10, z.dtype)

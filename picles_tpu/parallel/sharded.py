@@ -2,15 +2,15 @@
 
 The reference parallelizes with `@threads` over a SharedArray on one host
 plus an experimental Distributed/DArray block partition
-(TimeSteppers.jl:144-180, tests/T05_2D_distributed_particles.jl).  The
-TPU-native design block-shards the ``[nx, ny]`` particle/grid arrays over a
+(TimeSteppers.jl:144-180, tests/T05_2D_distributed_particles.jl).  This
+design block-shards the ``[nx, ny]`` particle/grid arrays over a
 2D device mesh; the model step is embarrassingly parallel except the CIC
 deposit, whose inter-shard traffic is exactly the halo slabs of the padded
 accumulator (picles_tpu.ops.pic.scatter_accumulate_padded):
 
  - interior edges: the H-wide x/y halo slabs ride ``ppermute`` rings to the
    neighboring shard and are added to its core — one bidirectional exchange
-   per axis per step over ICI,
+   per axis per step over the device interconnect,
  - domain edges fall out of the ``ppermute`` permutation: a periodic domain
    closes the ring (wrap == neighbor-add), a non-periodic one omits the wrap
    link so edge shards receive zeros (== the reference's silent drop,
@@ -22,13 +22,13 @@ accumulator (picles_tpu.ops.pic.scatter_accumulate_padded):
 Everything else in the step (ODE advance, guards, remesh) needs no
 communication; metrics are ``psum``-reduced.
 
-Multi-host pods: call ``jax.distributed.initialize()`` before building the
+Multi-host runs: call ``jax.distributed.initialize()`` before building the
 mesh (``make_mesh`` defaults to ``jax.devices()``, which is GLOBAL across
 processes); ``shard_state`` detects ``jax.process_count() > 1`` and
 contributes per-host shards via ``make_array_from_callback``.  The step
 itself is a ``shard_map`` over named mesh axes and is process-agnostic —
-its ppermute/all_gather collectives ride ICI within a slice and DCN
-between them, as laid out by the mesh.
+its ppermute/all_gather collectives run over the device interconnect
+(NVLink within a host), as laid out by the mesh.
 """
 
 from __future__ import annotations
@@ -140,22 +140,8 @@ class ShardedWaveGrowth2D:
         st = model.grid.stats
         nxd, nyd = self.nx_dev, self.ny_dev
 
-        cfg = model.resolved_config()
-        if cfg.scatter_mode == "dense_pallas":
-            # same padded planes from the fused kernel (single pass over
-            # the particle windows) instead of the (2H+1)^2 shifted-add
-            # XLA accumulate — the sharded TPU step keeps the production
-            # deposit backend; the ppermute exchange below is unchanged
-            from ..ops.pic_pallas import scatter_accumulate_padded_pallas
-
-            kw = ({"block_x": cfg.pallas_block_x}
-                  if cfg.pallas_block_x > 0 else {})
-            Pacc, stats = scatter_accumulate_padded_pallas(
-                xrel, yrel, charge, act, model.config.halo,
-                interpret=cfg.pallas_interpret, **kw)
-        else:
-            Pacc, stats = pic.scatter_accumulate_padded(
-                xrel, yrel, charge, act, model.config.halo)
+        Pacc, stats = pic.scatter_accumulate_padded(
+            xrel, yrel, charge, act, model.config.halo)
         nxl = Pacc.shape[0] - xl - xh
         nyl = Pacc.shape[1] - yl - yh
 
@@ -279,7 +265,7 @@ class ShardedWaveGrowth2D:
         """Place a (host/global) ModelState onto the mesh with the step's
         shardings so no resharding happens inside the loop.
 
-        Multi-host pods (jax.process_count() > 1 after
+        Multi-host runs (jax.process_count() > 1 after
         ``jax.distributed.initialize``): ``device_put`` cannot target
         non-addressable devices, so each process contributes its
         addressable shards via ``make_array_from_callback`` — every host

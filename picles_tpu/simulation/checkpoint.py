@@ -6,7 +6,7 @@ pytree (Eulerian state + particle SoA + clock + metrics) written as a
 compressed ``.npz`` with the pytree structure recorded alongside, so a
 simulation resumes bit-exactly on any backend.
 
-Multi-host pods: the npz backend device_gets the full state on every
+Multi-host runs: the npz backend device_gets the full state on every
 process (it requires fully-addressable arrays — fine single-host); for
 multi-process runs use ``backend="orbax"``, whose sharding-aware
 save/restore handles non-addressable global arrays natively.

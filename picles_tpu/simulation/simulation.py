@@ -3,7 +3,7 @@
 ``run`` keeps the reference loop semantics — initial store write, one model
 step per DT until ``clock.time`` exceeds ``stop_time`` — but the device-side
 work is chunked through ``lax.scan`` (``chunk_size`` steps per dispatch) so
-the host loop never throttles the TPU; stores receive stacked blocks.
+the host loop never throttles the device; stores receive stacked blocks.
 
 Unlike the reference, ``pickup`` (checkpoint resume) actually works — see
 picles_tpu.simulation.checkpoint.
@@ -122,8 +122,8 @@ class Simulation:
         ``lax.scan`` chunks of ``chunk_size`` (default 64) whose stacked
         outputs feed the store in blocks — the stacked scan output is
         ``[chunk, nx, ny, 3]`` on device regardless of horizon (an
-        unchunked 6-day 1536^2 endurance run would stack ~24 GB against a
-        v5e's 16 GB HBM; the reference writes the store once per step and
+        unchunked 6-day 1536^2 endurance run would stack ~24 GB of
+        history on the device; the reference writes the store once per step and
         never materializes a history, run.jl:94-112).  Without a store,
         steps run through ``step_n_quiet`` (``fori_loop``, no per-step
         output) so peak device memory stays O(state) for any horizon; a

@@ -17,11 +17,6 @@ from typing import List, Optional
 import jax
 import numpy as np
 
-try:
-    import h5py
-except ImportError:  # pragma: no cover
-    h5py = None
-
 
 class EmptyStore:
     iteration: int = 0
@@ -63,7 +58,9 @@ class StateStore:
 
     def __init__(self, path: str, coords: dict, name: str = "state",
                  replace: bool = True, var_names=("e", "m_x", "m_y")):
-        if h5py is None:
+        try:   # imported here: storeless and CashStore runs never need it
+            import h5py
+        except ImportError:  # pragma: no cover
             raise RuntimeError("h5py is unavailable; use CashStore")
         os.makedirs(path, exist_ok=True)
         fpath = os.path.join(path, name + ".h5")

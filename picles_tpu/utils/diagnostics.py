@@ -4,7 +4,7 @@ The reference sprinkles @info/@show plus BenchmarkTools dev-side timing
 (SURVEY §5); here: structured per-step diagnostics (the
 mean_of_state/max_energy helpers of TimeSteppers.jl:15-33), a NaN checker
 (the reference's commented-out NaNChecker callback, simulation.jl:63-75),
-and a JAX-profiler trace context for TPU performance work."""
+and a JAX-profiler trace context for device performance work."""
 
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ def step_summary(ms) -> dict:
 
 
 @contextlib.contextmanager
-def profile_trace(logdir: str = "/tmp/picles_tpu_trace") -> Iterator[None]:
+def profile_trace(logdir: str = "picles_trace") -> Iterator[None]:
     """Capture a JAX/XLA profiler trace around a block (open with
     tensorboard or xprof)."""
     jax.profiler.start_trace(logdir)

@@ -1,6 +1,6 @@
 """Particle diagnostics (reference src/Utils/ParticleTools.jl).
 
-The reference inspects per-particle ODE solution objects; the TPU build's
+The reference inspects per-particle ODE solution objects; this build's
 equivalent history is the stacked per-step particle SoA produced by a
 ``lax.scan`` (see ``record_trajectories``).  Converters produce pandas
 DataFrames with the same column sets (time, x, y, cg, lne, E, m)."""

@@ -1,5 +1,7 @@
-"""Pallas fused-advance kernel vs the XLA while_loop path (interpret mode on
-CPU; on TPU the same code compiles via Mosaic — cross-checked by bench)."""
+"""Pallas fused-advance kernel (Triton route) vs the XLA while_loop path.
+
+Interpret mode on the CPU; the same kernel compiles through Triton on the
+GPU, where chip_smoke.py and the ``gpu``-marked tests cross-check it."""
 
 import numpy as np
 import jax
@@ -57,7 +59,8 @@ def test_pallas_advance_time_dependent_winds():
 
 
 def test_pallas_block_divisor_handling():
-    """Odd grid sizes still work (8-aligned blocks + row padding)."""
+    """Odd grid sizes still work (power-of-two lane blocks + tail
+    padding)."""
     mx, mp = _models(constant_winds(10.0, 5.0), n=23)
     sp = mp.init_state()
     sp = mp.step(sp)
@@ -70,17 +73,18 @@ def test_pallas_block_divisor_handling():
     pytest.param(127, marks=pytest.mark.slow),
 ])
 def test_pallas_prime_nx_all_kernels_match_xla(n):
-    """Prime nx: the old divisor search degenerated to 1-row blocks (a
-    Mosaic hazard / silent perf cliff); blocks are now 8-aligned with row
-    padding and must give identical results.  Runs the full production
-    stack (fused advance + deposit + remesh, small forced block_x so the
-    padding path is exercised with several tiles)."""
+    """Prime nx: the flattened lane axis (n * 13 lanes) is not a multiple
+    of the block, so it runs as several programs plus a padded tail, and
+    the carried-dt production step must match the XLA path."""
+    from picles_tpu.ops.advance_pallas import BLOCK
+
     DT = 600.0
     ws = FR.MinimalWindsea(10.0, 10.0, DT)
     sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
                        timestep=DT, total_time=6 * 24 * 3600.0, dt=1e-3,
                        dtmin=1e-4, force_dtmin=True)
     grid = cartesian_box(100e3, n, 50e3, 13, periodic_boundary=(True, True))
+    assert n * 13 > BLOCK and (n * 13) % BLOCK != 0
     winds = constant_winds(10.0, 5.0)
     mx = WaveGrowth2D(grid, winds, sett,
                       config=WaveGrowth2DConfig(periodic_boundary=True,
@@ -88,9 +92,7 @@ def test_pallas_prime_nx_all_kernels_match_xla(n):
     mp = WaveGrowth2D(grid, winds, sett,
                       config=WaveGrowth2DConfig(
                           periodic_boundary=True, advance_mode="pallas",
-                          scatter_mode="dense_pallas", remesh_mode="pallas",
-                          dt_reset_mode="carry", pallas_block_x=16,
-                          pallas_interpret=True))
+                          dt_reset_mode="carry", pallas_interpret=True))
     sx, sp = mx.init_state(), mp.init_state()
     for _ in range(2):
         sx = mx.step(sx)
@@ -100,26 +102,6 @@ def test_pallas_prime_nx_all_kernels_match_xla(n):
     assert int(sp.metrics.n_failed) == 0
     for k in ("n_gather", "n_reseed", "n_off", "n_active"):
         assert int(getattr(sp.metrics, k)) == int(getattr(sx.metrics, k)), k
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("n", [61])
-def test_auto_dt_pallas_prime_nx(n):
-    """[exhaustive tier: auto-dt is a non-production dt policy and the
-    prime-nx padding machinery is locked by
-    test_pallas_prime_nx_all_kernels_match_xla; the auto_dt kernel itself
-    by test_auto_dt_pallas_matches_xla]
-
-    auto_dt path (dt_reset_mode='auto') on a prime nx."""
-    mx, mp = _models(constant_winds(10.0, 5.0), n=n)
-    sx, sp = mx.init_state(), mp.init_state()
-    for _ in range(2):
-        sx = mx.step(sx)
-        sp = mp.step(sp)
-    np.testing.assert_allclose(np.asarray(sp.particles.dt),
-                               np.asarray(sx.particles.dt), rtol=5e-3)
-    np.testing.assert_allclose(np.asarray(sp.state), np.asarray(sx.state),
-                               rtol=5e-3, atol=1e-8)
 
 
 @pytest.mark.slow
@@ -223,30 +205,6 @@ def test_pallas_advance_gridded_winds_frame_straddle():
     assert int(sp.metrics.n_gather) == int(sx.metrics.n_gather)
 
 
-def test_auto_dt_pallas_matches_xla():
-    """Fused auto_dt kernel vs tsit5.auto_dt on the same particle state."""
-    from picles_tpu.ops.advance_pallas import auto_dt_pallas
-    from picles_tpu.ops.rhs import RHSParams, make_rhs_consts
-    from picles_tpu.ops.tsit5 import auto_dt
-
-    mx, _ = _models(constant_winds(10.0, 5.0), n=24)
-    ms = mx.init_state()
-    for _ in range(2):
-        ms = mx.step(ms)
-    g = mx.grid
-    aux = RHSParams(x=g.x, y=g.y, M=g.proj, pc=g.pc)
-    d_xla = auto_dt(mx.rhs, ms.particles.t, ms.particles.z, aux,
-                    abstol=mx.settings.abstol, reltol=mx.settings.reltol)
-    consts = make_rhs_consts(gamma=mx.constants.gamma,
-                             constants=mx.constants, params=mx.params)
-    d_pl = auto_dt_pallas(mx.winds.u, mx.winds.v, consts, mx.flags,
-                          ms.particles.t, ms.particles.z, g.x, g.y,
-                          g.proj, g.pc, abstol=mx.settings.abstol,
-                          reltol=mx.settings.reltol, interpret=True)
-    np.testing.assert_allclose(np.asarray(d_pl), np.asarray(d_xla),
-                               rtol=1e-4, atol=1e-8)
-
-
 def test_pallas_advance_per_node_projection_spherical():
     """Spherical grids have per-node projection matrices and great-circle
     coefficients — the fused kernel's streamed (non-uniform) proj/pc branch.
@@ -305,269 +263,159 @@ def test_pallas_advance_per_node_projection_spherical():
 
 
 # ---------------------------------------------------------------------------
-# fused remesh kernel (ops/remesh_pallas.py)
+# Triton wrapper: 1D lane blocks, padding, direct kernel calls
 # ---------------------------------------------------------------------------
 
-def _carry_models(winds, n=24, remesh="pallas"):
+@pytest.mark.parametrize("n,block", [
+    (1, 256), (2, 256), (3, 256), (31, 256), (23 * 19, 256),
+    (61 * 13, 64), (127, 100), (360 * 180, 256), (1536 * 1536, 256),
+    (2 ** 20 + 1, 512),
+])
+def test_lane_block_power_of_two_and_padding(n, block):
+    """Power-of-two lane blocks for any lane count (primes, odd products,
+    the 1 deg tripolar and 1536^2 grids); padding is less than one block
+    and vanishes when the block divides the lane count."""
+    from picles_tpu.ops.advance_pallas import lane_block
+
+    b, n_pad = lane_block(n, block)
+    assert b & (b - 1) == 0 and 1 <= b <= block
+    assert n_pad % b == 0 and n <= n_pad < n + b
+    if n >= block:
+        assert b == 1 << (block.bit_length() - 1)   # block rounded down
+    else:
+        assert b < 2 * n                            # small grids: one block
+    if n % b == 0:
+        assert n_pad == n
+
+
+def test_lane_block_rejects_nonpositive_block():
+    from picles_tpu.ops.advance_pallas import lane_block
+
+    with pytest.raises(ValueError, match="block"):
+        lane_block(100, 0)
+
+
+def _direct_inputs(nx, ny, seed=0):
+    """A perturbed mid-growth particle state on an odd grid: lane dts
+    spread over five decades so the per-lane sub-step counts differ."""
     DT = 600.0
     ws = FR.MinimalWindsea(10.0, 10.0, DT)
     sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
                        timestep=DT, total_time=6 * 24 * 3600.0, dt=1e-3,
                        dtmin=1e-4, force_dtmin=True)
-    grid = cartesian_box(100e3, n, 100e3, n, periodic_boundary=(True, True))
-    # the "fused" remesh runs inside the gather-kernel deposit; give the
-    # XLA-remesh baseline the SAME deposit backend so the comparison
-    # isolates the remesh fusion (deposit backends differ in summation
-    # order, which wave growth amplifies past tight tolerances)
-    scatter = "dense_pallas" if remesh == "fused" else "auto"
-    mk = lambda rm: WaveGrowth2D(  # noqa: E731
-        grid, winds, sett,
-        config=WaveGrowth2DConfig(periodic_boundary=True,
-                                  advance_mode="pallas",
-                                  scatter_mode=scatter,
-                                  dt_reset_mode="carry",
-                                  remesh_mode=rm,
-                                  pallas_interpret=True))
-    return mk("xla"), mk(remesh)
-
-
-@pytest.mark.parametrize("remesh", [
-    "pallas",
-    # fused remesh-in-gather: exhaustive tier (same branch table is
-    # locked by the [pallas] sibling + test_fused_remesh_boundary_families)
-    pytest.param("fused", marks=pytest.mark.slow),
-])
-def test_remesh_pallas_matches_xla_constant_winds(remesh):
-    mx, mp = _carry_models(constant_winds(10.0, 5.0), remesh=remesh)
-    sx, sp = mx.init_state(), mp.init_state()
-    sx, sp = mx.step(sx), mp.step(sp)
-    # after ONE step the carried dt must agree tightly — this pins the dt
-    # plumbing (a misrouted plane shows up instantly as clip(junk))
-    np.testing.assert_allclose(np.asarray(sp.particles.dt),
-                               np.asarray(sx.particles.dt), rtol=1e-6)
-    for _ in range(2):
-        sx = mx.step(sx)
-        sp = mp.step(sp)
-    np.testing.assert_allclose(np.asarray(sp.state), np.asarray(sx.state),
-                               rtol=1e-5, atol=1e-9)
-    # after 3 steps dt is error-controller state: a 1-ulp cross-backend
-    # difference in the gathered cg can flip one accept/reject decision
-    # and legitimately move a lane's carried dt (observed: 600 vs
-    # 600*0.953 after a rejected probe; on a homogeneous box ALL lanes
-    # flip together).  Bound by the single-flip controller envelope.
-    np.testing.assert_allclose(np.asarray(sp.particles.dt),
-                               np.asarray(sx.particles.dt), rtol=0.11)
-    for f in ("n_gather", "n_reseed", "n_off", "n_active", "n_failed"):
-        assert int(getattr(sp.metrics, f)) == int(getattr(sx.metrics, f)), f
-
-
-@pytest.mark.parametrize("remesh", [
-    "pallas",
-    # fused remesh-in-gather: exhaustive tier (same branch table is
-    # locked by the [pallas] sibling + test_fused_remesh_boundary_families)
-    pytest.param("fused", marks=pytest.mark.slow),
-])
-def test_remesh_pallas_reseed_and_off_branches(remesh):
-    """Half-domain winds drive the off (and possibly reseed) branches
-    through the fused kernel identically to the XLA selects."""
-    from picles_tpu.forcing.winds import half_domain_winds
-
-    winds = half_domain_winds(10.0, 5.0, x_split=50e3)
-    # n/steps sized for interpret-mode cost: the off branch fires from
-    # step 1 on the calm half (asserted below via the off population —
-    # n_off counts on->off TRANSITIONS, of which a steady half-calm box
-    # has none), so 5 steps at 12^2 keep the coverage of the old 8 steps
-    # at 16^2 at ~1/3 the wall time
-    mx, mp = _carry_models(winds, n=12, remesh=remesh)
-    sx, sp = mx.init_state(), mp.init_state()
-    for _ in range(5):
-        sx = mx.step(sx)
-        sp = mp.step(sp)
-        assert int(sp.metrics.n_off) == int(sx.metrics.n_off)
-        assert int(sp.metrics.n_reseed) == int(sx.metrics.n_reseed)
-        # the go_off branch executed and holds the calm half off,
-        # identically across backends
-        assert int((~np.asarray(sp.particles.on)).sum()) > 0
-        assert np.array_equal(np.asarray(sp.particles.on),
-                              np.asarray(sx.particles.on))
-        # backends agree to ~1 ulp/step; growth amplifies rounding order
-        np.testing.assert_allclose(np.asarray(sp.state), np.asarray(sx.state),
-                                   rtol=1e-2, atol=1e-8)
-
-
-@pytest.mark.parametrize("remesh", [
-    "pallas",
-    # fused remesh-in-gather: exhaustive tier (same branch table is
-    # locked by the [pallas] sibling + test_fused_remesh_boundary_families)
-    pytest.param("fused", marks=pytest.mark.slow),
-])
-def test_remesh_pallas_gridded_winds(remesh):
-    import math
-
-    from picles_tpu.forcing.winds import GriddedWinds2D
-
-    nt, ngx, ngy = 8, 12, 12
-    tg = np.linspace(0, 8 * 3600.0, nt)
-    xg = np.linspace(0, 100e3, ngx)
-    u = np.zeros((nt, ngx, ngy), np.float32)
-    for k in range(nt):
-        u[k] = 8.0 + 4.0 * math.sin(2 * math.pi * k / nt)
-    gw = GriddedWinds2D(u_data=jnp.asarray(u), v_data=jnp.asarray(0.3 * u),
-                        x0=0.0, dx=float(xg[1] - xg[0]),
-                        y0=0.0, dy=float(xg[1] - xg[0]),
-                        t0=0.0, dt=float(tg[1] - tg[0]))
-    mx, mp = _carry_models(gw, n=12, remesh=remesh)
-    sx, sp = mx.init_state(), mp.init_state()
-    for _ in range(4):
-        sx = mx.step(sx)
-        sp = mp.step(sp)
-    np.testing.assert_allclose(np.asarray(sp.state), np.asarray(sx.state),
-                               rtol=1e-4, atol=1e-8)
-
-
-def test_remesh_pallas_requires_carry():
-    import pytest
-
-    DT = 600.0
-    ws = FR.MinimalWindsea(10.0, 10.0, DT)
-    sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
-                       timestep=DT, total_time=6 * 24 * 3600.0, dt=1e-3,
-                       dtmin=1e-4, force_dtmin=True)
-    grid = cartesian_box(100e3, 8, 100e3, 8, periodic_boundary=(True, True))
+    grid = cartesian_box(100e3, nx, 100e3, ny, periodic_boundary=(True, True))
     m = WaveGrowth2D(grid, constant_winds(10.0, 5.0), sett,
-                     config=WaveGrowth2DConfig(remesh_mode="pallas",
-                                               dt_reset_mode="auto",
-                                               pallas_interpret=True))
-    with pytest.raises(ValueError):
-        m.step(m.init_state())
+                     config=WaveGrowth2DConfig(advance_mode="xla"))
+    ms = m.step(m.init_state())
+    rng = np.random.default_rng(seed)
+    dt = jnp.asarray(10.0 ** rng.uniform(-2, 2.5, (nx, ny)), jnp.float32)
+    act = jnp.asarray(rng.random((nx, ny)) > 0.2) & ms.particles.on
+    return m, ms.particles, dt, act
 
 
-def test_auto_block_x_respects_scoped_vmem_limit():
-    """The VMEM-budget block sizing must keep the Mosaic stack under the
-    16 MB scoped limit for any ny, including lane-padded awkward sizes.
+def _run_direct(m, P, dt, act, **kw):
+    from picles_tpu.ops.advance_pallas import advance_pallas
+    from picles_tpu.ops.rhs import make_rhs_consts
 
-    Regression: at 360x180 (1-deg tripolar grid) the naive
-    ``budget // (ny * n * 4)`` sizing picked a 256-row block whose
-    compile-time stack request was 24.28 MB (93 f32 buffers after lane
-    padding 180 -> 256), an AOT OOM on the real chip.
-    """
-    from picles_tpu.ops.pallas_util import auto_block_x, row_block
-
-    LIMIT = 16 * 1024 * 1024
-    for ny in (24, 51, 127, 180, 256, 768, 1536, 3072):
-        for n_buf in (64, 93):
-            bx, _ = row_block(10_000, auto_block_x(ny, n_buf))
-            ny_lanes = ((ny + 127) // 128) * 128
-            stack = bx * ny_lanes * 4 * n_buf
-            assert stack <= LIMIT, (ny, n_buf, bx, stack)
-            assert bx % 8 == 0
-    # the production 1536^2 bench config keeps its proven 24-row block
-    assert row_block(1536, auto_block_x(1536, 93))[0] == 24
+    consts = make_rhs_consts(gamma=m.constants.gamma, constants=m.constants,
+                             params=m.params)
+    g = m.grid
+    return advance_pallas(m.winds.u, m.winds.v, consts, m.flags, m.solver,
+                          float(m.settings.timestep),
+                          (P.lne, P.cgx, P.cgy, P.px, P.py), P.t, dt, act,
+                          g.x, g.y, m.uniform_proj, g.pc, interpret=True,
+                          **kw)
 
 
-def test_pallas_advance_wide_grid_column_tiling():
-    """Grids too wide for even an 8-row full-width block (ny >= ~5300 at
-    the advance kernel's 93-buffer stack) switch to 2D column tiling
-    instead of raising — the 2D-tiled kernel must match the XLA
-    integrator exactly like the 1D one."""
-    from picles_tpu.ops.pallas_util import col_block
+@pytest.mark.parametrize("nx,ny,block", [(13, 7, 16), (11, 11, 32),
+                                         (7, 5, 4)])
+def test_advance_pallas_direct_matches_integrate_to(nx, ny, block):
+    """The kernel alone against tsit5.integrate_to on odd and prime grids
+    with several padded blocks: same state, clock and failures per lane.
+    Accepted sub-step counts agree to one sub-step on a few lanes: the
+    component-wise kernel and the stacked XLA loop round differently in
+    the last bit, which can flip a borderline accept/reject decision."""
+    from picles_tpu.ops.rhs import RHSParams
+    from picles_tpu.ops.tsit5 import integrate_to
 
-    ny = 6016
-    assert col_block(ny, 93) < ((ny + 127) // 128) * 128  # 2D path engaged
-    DT = 600.0
-    ws = FR.MinimalWindsea(10.0, 10.0, DT)
-    sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
-                       timestep=DT, total_time=6 * 24 * 3600.0, dt=1e-3,
-                       dtmin=1e-4, force_dtmin=True)
-    grid = cartesian_box(30e3, 16, 2e3 * (ny - 1), ny,
-                         periodic_boundary=(True, True))
-    mx = WaveGrowth2D(grid, constant_winds(10.0, 5.0), sett,
-                      config=WaveGrowth2DConfig(periodic_boundary=True,
-                                                advance_mode="xla"))
-    mp = WaveGrowth2D(grid, constant_winds(10.0, 5.0), sett,
-                      config=WaveGrowth2DConfig(periodic_boundary=True,
-                                                advance_mode="pallas",
-                                                pallas_interpret=True))
-    sx, sp = mx.init_state(), mp.init_state()
-    sx, sp = mx.step(sx), mp.step(sp)
-    np.testing.assert_allclose(np.asarray(sp.state), np.asarray(sx.state),
-                               rtol=5e-3, atol=1e-8)
-    assert int(sp.metrics.n_failed) == 0
-    assert int(sp.metrics.n_gather) == int(sx.metrics.n_gather)
+    m, P, dt, act = _direct_inputs(nx, ny)
+    r = _run_direct(m, P, dt, act, block=block)
+    g = m.grid
+    ref = integrate_to(m.rhs, P.z, P.t, P.t + m.settings.timestep, dt,
+                       RHSParams(x=g.x, y=g.y, M=g.proj, pc=g.pc), act,
+                       m.solver)
+    got = np.stack([np.asarray(c) for c in (r.lne, r.cgx, r.cgy, r.x, r.y)],
+                   -1)
+    np.testing.assert_allclose(got, np.asarray(ref.z), rtol=5e-3, atol=1e-8)
+    np.testing.assert_allclose(np.asarray(r.t), np.asarray(ref.t), rtol=1e-6)
+    assert np.array_equal(np.asarray(r.failed), np.asarray(ref.failed))
+    dn = np.abs(np.asarray(r.naccept) - np.asarray(ref.naccept))
+    assert dn.max() <= 1 and dn.mean() < 0.1
+    assert int(np.asarray(ref.naccept).max()) > 1   # lanes really adapt
 
 
-@pytest.mark.parametrize("boundary,halo", [
-    # tripolar variant: exhaustive tier (the seam fold itself is locked by
-    # test_pic_pallas / test_tripolar; this sweep re-runs it through the
-    # fused remesh, whose branch table the nonperiodic case also covers)
-    pytest.param("tripolar", ((0, 3), (0, 3)), marks=pytest.mark.slow),
-    ("nonperiodic", ((1, 3), (0, 2))),
+@pytest.mark.parametrize("block", [4, 16, 64])
+def test_advance_pallas_block_size_invariant(block):
+    """Lanes are independent: the block size (and with it which lanes share
+    a program and how the tail is padded) changes the result only by the
+    vector width's last-bit rounding, amplified at most by a flipped
+    accept/reject decision — solver tolerance, same failures, and every
+    lane's clock on t_end."""
+    m, P, dt, act = _direct_inputs(9, 7, seed=1)
+    a = _run_direct(m, P, dt, act, block=block)
+    b = _run_direct(m, P, dt, act, block=256)
+    for f in ("lne", "cgx", "cgy", "x", "y"):
+        np.testing.assert_allclose(np.asarray(getattr(a, f)),
+                                   np.asarray(getattr(b, f)), rtol=5e-3,
+                                   atol=1e-8, err_msg=f)
+    assert np.array_equal(np.asarray(a.failed), np.asarray(b.failed))
+    np.testing.assert_array_equal(np.asarray(a.t), np.asarray(b.t))
+    assert a.lne.shape == P.t.shape
+
+
+# ---------------------------------------------------------------------------
+# backend resolution
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend,mode,interpret,want", [
+    ("cpu", "auto", False, "xla"),
+    ("gpu", "auto", False, "pallas"),
+    ("cpu", "xla", False, "xla"),
+    ("gpu", "xla", False, "xla"),
+    ("gpu", "pallas", False, "pallas"),
+    ("cpu", "pallas", True, "pallas"),
+    ("cpu", "pallas", False, ValueError),
+    ("rocm", "pallas", False, ValueError),
 ])
-def test_fused_remesh_boundary_families(boundary, halo):
-    """remesh_mode='fused' across the boundary families the production
-    configs use: tripolar seam with zero-lo halo and non-periodic with
-    asymmetric bounds.  Compared against remesh_mode='xla' on the SAME
-    (dense_pallas) deposit, the composition is bitwise identical in
-    interpret mode."""
-    import dataclasses
+def test_advance_mode_resolution(monkeypatch, backend, mode, interpret, want):
+    """"auto" is the Triton advance on the GPU and the XLA loop elsewhere;
+    an explicit "pallas" that cannot compile raises instead of silently
+    interpreting or falling back."""
+    from picles_tpu.models import wave_growth_2d as W
 
-    from picles_tpu.grids.base import Boundary
-
-    DT = 600.0
-    ws = FR.MinimalWindsea(10.0, 10.0, DT)
-    sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
-                       timestep=DT, total_time=6 * 24 * 3600.0, dt=1e-3,
-                       dtmin=1e-4, force_dtmin=True)
-    per = boundary != "nonperiodic"
-    grid = cartesian_box(100e3, 24, 100e3, 16,
-                         periodic_boundary=(per, per))
-    if boundary == "tripolar":
-        stats = dataclasses.replace(grid.stats, bx=Boundary.PERIODIC,
-                                    by=Boundary.TRIPOLAR_NORTH)
-        grid = dataclasses.replace(grid, stats=stats)
-    mk = lambda rm: WaveGrowth2D(  # noqa: E731
-        grid, constant_winds(0.0, 10.0), sett,
-        config=WaveGrowth2DConfig(periodic_boundary=per,
-                                  advance_mode="pallas",
-                                  scatter_mode="dense_pallas",
-                                  dt_reset_mode="carry", remesh_mode=rm,
-                                  halo=halo, pallas_interpret=True))
-    mx, mf = mk("xla"), mk("fused")
-    sx, sf = mx.init_state(), mf.init_state()
-    for _ in range(3):
-        sx = mx.step(sx)
-        sf = mf.step(sf)
-    np.testing.assert_array_equal(np.asarray(sf.state), np.asarray(sx.state))
-    for k in ("n_gather", "n_reseed", "n_off", "n_failed"):
-        assert int(getattr(sf.metrics, k)) == int(getattr(sx.metrics, k)), k
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    cfg = WaveGrowth2DConfig(advance_mode=mode, pallas_interpret=interpret)
+    if want is ValueError:
+        with pytest.raises(ValueError, match="GPU"):
+            W._resolve_auto_modes(cfg)
+    else:
+        assert W._resolve_auto_modes(cfg).advance_mode == want
 
 
-def test_fused_requires_dense_pallas_scatter():
-    """remesh_mode='fused' IS the dense_pallas deposit: any other resolved
-    scatter_mode is a config error, raised clearly instead of dying in
-    Mosaic lowering."""
-    DT = 600.0
-    ws = FR.MinimalWindsea(10.0, 10.0, DT)
-    sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
-                       timestep=DT, total_time=6 * 3600.0, dt=1e-3,
-                       dtmin=1e-4, force_dtmin=True)
-    grid = cartesian_box(100e3, 8, 100e3, 8, periodic_boundary=(True, True))
-    m = WaveGrowth2D(grid, constant_winds(10.0, 5.0), sett,
-                     config=WaveGrowth2DConfig(remesh_mode="fused",
-                                               scatter_mode="dense",
-                                               dt_reset_mode="carry",
-                                               pallas_interpret=True))
-    with pytest.raises(ValueError, match="dense_pallas"):
-        m.step(m.init_state())
+@pytest.mark.parametrize("kw", [dict(advance_mode="bogus"),
+                                dict(scatter_mode="pallas"),
+                                dict(scatter_mode="auto")])
+def test_unknown_kernel_modes_raise(kw):
+    from picles_tpu.models.wave_growth_2d import _resolve_auto_modes
+
+    with pytest.raises(ValueError, match="unknown"):
+        _resolve_auto_modes(WaveGrowth2DConfig(**kw))
 
 
-@pytest.mark.parametrize("remesh", ["pallas", "fused"])
-def test_remesh_pallas_fixed_substep_carries_dt_unclipped(remesh):
-    """ODESettings.adaptive=False: the Pallas/fused remesh must carry dt
-    untouched like the XLA tail's `if not sett.adaptive: pass` — a
-    fixed sub-step configured outside [dtmin, DT] (here 2*DT) previously
-    came back clipped to DT from the fused kernels only, breaking the
-    identical-backends contract on the dt plane."""
+@pytest.mark.parametrize("mode", ["xla", "pallas"])
+def test_fixed_substep_carries_dt_unclipped(mode):
+    """ODESettings.adaptive=False: both advances carry the configured fixed
+    sub-step verbatim through the remesh, even outside [dtmin, DT]."""
     DT = 600.0
     ws = FR.MinimalWindsea(10.0, 10.0, DT)
     sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
@@ -575,50 +423,16 @@ def test_remesh_pallas_fixed_substep_carries_dt_unclipped(remesh):
                        dt=2 * DT,              # deliberate: outside [dtmin, DT]
                        dtmin=1e-4, force_dtmin=True, adaptive=False)
     grid = cartesian_box(100e3, 8, 100e3, 8, periodic_boundary=(True, True))
-    scatter = "dense_pallas" if remesh == "fused" else "auto"
-    mk = lambda rm: WaveGrowth2D(  # noqa: E731
+    mk = lambda am: WaveGrowth2D(  # noqa: E731
         grid, constant_winds(10.0, 5.0), sett,
-        config=WaveGrowth2DConfig(periodic_boundary=True,
-                                  advance_mode="pallas",
-                                  scatter_mode=scatter,
+        config=WaveGrowth2DConfig(periodic_boundary=True, advance_mode=am,
                                   dt_reset_mode="carry",
-                                  remesh_mode=rm,
                                   pallas_interpret=True))
-    mx, mp = mk("xla"), mk(remesh)
+    mx, mp = mk("xla"), mk(mode)
     sx, sp = mx.init_state(), mp.init_state()
     for _ in range(2):
         sx, sp = mx.step(sx), mp.step(sp)
-    # both backends carry the configured fixed sub-step verbatim
     np.testing.assert_array_equal(np.asarray(sp.particles.dt),
                                   np.full((8, 8), 2 * DT, np.float32))
-    np.testing.assert_array_equal(np.asarray(sx.particles.dt),
-                                  np.asarray(sp.particles.dt))
     np.testing.assert_allclose(np.asarray(sp.state), np.asarray(sx.state),
                                rtol=2e-6, atol=1e-9)
-
-
-def test_auto_dt_falls_back_to_xla_on_ultra_wide_grid():
-    """ny too wide even for the auto-dt kernel's 8-row block (> 8192
-    lanes at its 64-buffer stack): the DEFAULT config (dt_reset "auto")
-    must fall back to the XLA Hairer estimate instead of raising from
-    auto_block_x — the advance kernel itself column-tiles fine."""
-    from picles_tpu.ops.pallas_util import fits_row_tiling
-
-    ny = 8320
-    assert not fits_row_tiling(ny, 64)       # auto-dt kernel cannot tile
-    DT = 600.0
-    ws = FR.MinimalWindsea(10.0, 10.0, DT)
-    sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
-                       timestep=DT, total_time=6 * 24 * 3600.0, dt=1e-3,
-                       dtmin=1e-4, force_dtmin=True)
-    grid = cartesian_box(14e3, 8, 2e3 * (ny - 1), ny,
-                         periodic_boundary=(True, True))
-    m = WaveGrowth2D(grid, constant_winds(10.0, 5.0), sett,
-                     config=WaveGrowth2DConfig(periodic_boundary=True,
-                                               advance_mode="pallas",
-                                               dt_reset_mode="auto",
-                                               pallas_interpret=True))
-    ms = m.init_state()
-    ms = m.step(ms)                          # raised ValueError before
-    assert int(ms.metrics.n_failed) == 0
-    assert np.all(np.isfinite(np.asarray(ms.state)))

@@ -7,7 +7,7 @@ picles_tpu's compute path (the RHS transcription `_np_rhs_2d` lives in
 test_rhs.py and is itself locked against scipy there).  The framework's
 jitted step is then run on the same tiny configurations and must match the
 oracle to solver tolerance.  This anchors the golden regression locks
-OUTSIDE the code under test (VERDICT r2 item 6).
+OUTSIDE the code under test.
 
 Oracle per-step semantics (reference run.jl:72-115 + mapping_2D.jl:118-356):
   1. advance every on particle by DT with an independent adaptive RK
@@ -461,7 +461,7 @@ def test_full_step_matches_f64_oracle(case):
 
 
 # ---------------------------------------------------------------------------
-# spherical + tripolar full-step oracle locks (VERDICT r3 item 1): the
+# spherical + tripolar full-step oracle locks: the
 # per-node rotation projection, the great-circle steering term, and the
 # north-seam scatter fold — the subtlest math in the repo — anchored against
 # the independent float64 transcriptions above.

@@ -20,7 +20,7 @@ from picles_tpu.models.wave_growth_2d import WaveGrowth2D, WaveGrowth2DConfig
 
 # step -> (e, m_x, m_y at node [8, 8]; total energy)
 # Generated on the CPU (XLA host) backend — the backend the suite pins in
-# conftest.py.  Cross-backend (TPU) runs agree only to ~1e-3: the adaptive
+# conftest.py.  Cross-backend (GPU) runs agree only to ~1e-3: the adaptive
 # error controller amplifies last-ulp transcendental differences into
 # different (all valid) accept/reject paths — see _rtols().
 GOLDEN = {
@@ -65,31 +65,22 @@ def _rtols(cfg):
     return 1e-4
 
 
-# Interpret-mode Pallas goldens are the suite's slowest tests (~40-50 s
-# each on CPU).  The default tier keeps one golden per family: the
-# XLA reference, the full production Pallas stack, and the asymmetric
-# halo.  The intermediate stack stages and the fused-remesh variant are
-# the exhaustive `slow` tier (their kernels stay locked by pallas-full
-# here plus the dedicated kernel-vs-XLA tests in test_advance_pallas /
-# test_pic_pallas); run them with --runslow / PICLES_SLOW=1.
+# Interpret-mode Pallas goldens are the suite's slowest tests.  The default
+# tier keeps one golden per family: the XLA reference, the production
+# stack (Triton advance + carried dt), and the asymmetric halo.  The
+# advance alone under the reference dt policy is the exhaustive `slow`
+# tier (its kernel stays locked by pallas-full here plus the dedicated
+# kernel-vs-XLA tests in test_advance_pallas); run it with --runslow /
+# PICLES_SLOW=1.
 _slow = pytest.mark.slow
 @pytest.mark.parametrize("cfg", [
     dict(),                                                    # XLA reference
     pytest.param(dict(advance_mode="pallas", pallas_interpret=True),
                  marks=_slow),                                 # fused advance
-    pytest.param(dict(advance_mode="pallas", pallas_interpret=True,
-                      scatter_mode="dense_pallas"),
-                 marks=_slow),                                 # + fused deposit
     dict(advance_mode="pallas", pallas_interpret=True,
-         scatter_mode="dense_pallas", dt_reset_mode="carry",
-         remesh_mode="pallas"),                                # production stack
-    pytest.param(dict(advance_mode="pallas", pallas_interpret=True,
-                      scatter_mode="dense_pallas", dt_reset_mode="carry",
-                      remesh_mode="fused"),
-                 marks=_slow),                    # remesh inside the gather
+         dt_reset_mode="carry"),                               # production stack
     dict(halo=((1, 3), (1, 3))),                               # asym capacity
-], ids=["xla", "pallas-adv", "pallas-adv+scatter", "pallas-full",
-        "pallas-fused-remesh", "asym-halo"])
+], ids=["xla", "pallas-adv", "pallas-full", "asym-halo"])
 def test_forced_box_golden(cfg):
     m = _model(**cfg)
     ms = m.init_state()
@@ -118,7 +109,7 @@ def test_forced_box_golden(cfg):
 
 def test_determinism_bitwise():
     """Same input -> bitwise same state (the reference's threaded scatter
-    races, SURVEY §5; the TPU build is deterministic by construction)."""
+    races, SURVEY §5; this build is deterministic by construction)."""
     m = _model()
     a, b = m.init_state(), m.init_state()
     for _ in range(3):

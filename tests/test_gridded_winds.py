@@ -69,7 +69,7 @@ def test_model_with_gridded_winds():
 def test_per_axis_edge_modes_short_wind_record():
     """A wind record SHORTER than the run: the time axis clamps (holds the
     last frame) independently of the spatial mode — previously choosing
-    'wrap' for periodic space also wrapped time (VERDICT r2 item 9)."""
+    'wrap' for periodic space also wrapped time."""
     nt, nxw, nyw = 4, 6, 6
     rng = np.random.default_rng(7)
     u = rng.uniform(6.0, 12.0, (nt, nxw, nyw)).astype(np.float32)
@@ -283,7 +283,7 @@ def test_gridded_winds_1d_per_axis_edge_modes():
 
 def test_load_gridded_winds_nonuniform_netcdf(tmp_path):
     """A gaussian-spaced-latitude wind file loads into node-table axes and
-    interpolates correctly (VERDICT r4 item 4 'done' criterion)."""
+    interpolates correctly."""
     import h5py
 
     from picles_tpu.forcing.winds import load_gridded_winds_2d

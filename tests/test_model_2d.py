@@ -296,12 +296,13 @@ def test_boundary_type_mininmal_boundary_stays_dark():
     assert E["wind_sea"][bnd].min() > 100 * E["mininmal"][bnd].min()
 
 
-def test_boundary_type_pallas_remesh_matches_xla():
-    """The fused Pallas remesh applies the same boundary_defaults branch."""
+def test_boundary_type_pallas_advance_matches_xla():
+    """The open-boundary inflow condition (boundary nodes never integrate,
+    reseed from boundary_defaults) is the same with the Triton advance."""
     kw = dict(periodic=False, boundary_type="mininmal",
               dt_reset_mode="carry")
     m_x = _box_model(**kw)
-    m_p = _box_model(remesh_mode="pallas", pallas_interpret=True, **kw)
+    m_p = _box_model(advance_mode="pallas", pallas_interpret=True, **kw)
     s_x, s_p = m_x.init_state(), m_p.init_state()
     step_x, step_p = jax.jit(m_x.step), jax.jit(m_p.step)
     for _ in range(4):
@@ -329,29 +330,29 @@ def test_boundary_type_validation():
 def test_auto_kernel_modes_resolve_per_backend(monkeypatch):
     """"auto" resolves LAZILY at step-build time against the then-current
     backend (not snapshotted at construction): a model built before device
-    selection compiles the right kernel family, and ``model.config``
-    round-trips the user's "auto"."""
+    selection compiles the right advance, and ``model.config`` round-trips
+    the user's "auto"."""
     import jax
 
     from picles_tpu.models.wave_growth_2d import _resolve_auto_modes
 
-    m = _box_model()  # default config -> auto
+    m = _box_model()  # default config -> auto advance, dense deposit
     # config round-trips the user's choice verbatim
     assert m.config.advance_mode == "auto"
-    assert m.config.scatter_mode == "auto"
-    # resolution against the current (CPU) backend picks the XLA twins
+    assert m.config.scatter_mode == "dense"
+    # resolution against the current (CPU) backend picks the XLA loop
     r = m.resolved_config()
     assert r.advance_mode == "xla" and r.scatter_mode == "dense"
     # ...and the resolved config actually steps (never sees "auto")
     ms = m.step(m.init_state())
     assert float(ms.time) > 0.0
 
-    # construct-on-cpu / step-on-tpu: the SAME model re-resolves when the
+    # construct-on-cpu / step-on-gpu: the SAME model re-resolves when the
     # default backend changes after construction
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    r_tpu = m.resolved_config()
-    assert r_tpu.advance_mode == "pallas"
-    assert r_tpu.scatter_mode == "dense_pallas"
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    r_gpu = m.resolved_config()
+    assert r_gpu.advance_mode == "pallas"
+    assert r_gpu.scatter_mode == "dense"
     assert m.config.advance_mode == "auto"  # still round-trips
 
     # explicit choices always win, on any backend
@@ -423,3 +424,56 @@ def test_rotated_cartesian_grid_diagonal_propagation():
     np.testing.assert_allclose(dj / di, -math.tan(math.radians(45.0)),
                                rtol=0.05)  # -tan(angle) * dx/dy = -1
     assert int(ms.metrics.n_failed) == 0
+
+
+@pytest.mark.parametrize("dt_reset_mode", ["carry", "auto"])
+def test_xla_remesh_reseed_and_off_branches(dt_reset_mode):
+    """The XLA remesh's reseed and off branches, forced: with a node
+    energy floor above any deposit no node can gather, so every node with
+    usable wind reseeds to the local windsea and every node whose wind
+    died switches off.  Winds blow everywhere for the first two remeshes,
+    then only on the x < 50 km half."""
+    from picles_tpu.forcing.winds import Winds2D
+
+    DT = 600.0
+    grid = cartesian_box(100e3, 21, 100e3, 11, periodic_boundary=(True, True))
+    windy = np.asarray(grid.x) < 50e3
+
+    def u(x, y, t):
+        return jnp.where((jnp.asarray(x) < 50e3) | (jnp.asarray(t) < 2 * DT),
+                         10.0, 0.0)
+
+    def v(x, y, t):
+        return jnp.zeros_like(jnp.asarray(x) * jnp.asarray(t))
+
+    ws = FR.get_initial_windsea(10.0, 0.0, DT)
+    model = WaveGrowth2D(grid, Winds2D(u=u, v=v), _settings(U=10.0, V=0.0),
+                         minimal_state=(1e3 * float(ws.E), 0.0),
+                         config=WaveGrowth2DConfig(
+                             periodic_boundary=True,
+                             dt_reset_mode=dt_reset_mode))
+    ms = model.init_state()
+    assert bool(np.all(np.asarray(ms.particles.on)))
+    step = jax.jit(model.step)
+    n = windy.size
+    for k in range(4):
+        ms = step(ms)
+        M, P = ms.metrics, ms.particles
+        assert int(M.n_gather) == 0
+        on = np.asarray(P.on)
+        if k < 2:          # remesh winds sampled at t = k DT < 2 DT
+            assert int(M.n_reseed) == n and int(M.n_off) == 0
+            assert on.all()
+        else:
+            assert int(M.n_reseed) == int(windy.sum())
+            # off counts on -> off transitions: once, at the wind's death
+            assert int(M.n_off) == (n - int(windy.sum()) if k == 2 else 0)
+            assert np.array_equal(on, windy)
+        # reseeded lanes hold the fresh windsea at their home node
+        np.testing.assert_allclose(np.asarray(P.lne)[on], float(ws.lne),
+                                   rtol=1e-6)
+        assert not np.any(np.asarray(P.px)[on])
+        assert not np.any(np.asarray(P.py)[on])
+        dt = np.asarray(P.dt)[on]
+        assert np.all((dt >= model.settings.dtmin) & (dt <= DT))
+        assert np.all(np.isfinite(np.asarray(ms.state)))

@@ -1,4 +1,4 @@
-"""TRUE multi-process execution of the sharded model (VERDICT r4 item 5).
+"""TRUE multi-process execution of the sharded model.
 
 Spawns 2 real OS processes (tests/_multiproc_worker.py), each owning 4
 CPU devices, joined by ``jax.distributed.initialize`` into one 8-device

@@ -276,7 +276,7 @@ def test_sharded_gridded_winds_matches_single_device():
 
 def test_sharded_pallas_advance_matches_single_device():
     """The fused Pallas advance (interpret mode on CPU) runs inside
-    shard_map — the production multi-chip configuration."""
+    shard_map — the production multi-card configuration."""
     grid = cartesian_box(100e3, 32, 100e3, 24, periodic_boundary=(True, True))
     cfg = WaveGrowth2DConfig(periodic_boundary=True, advance_mode="pallas",
                              dt_reset_mode="carry", pallas_interpret=True)
@@ -531,59 +531,13 @@ def test_shard_state_multihost_callback_path_equivalent():
     np.testing.assert_array_equal(np.asarray(sa.state), np.asarray(sb.state))
 
 
-def test_sharded_scatter_pallas_accumulate_collective_exact():
-    """The sharded deposit honors scatter_mode="dense_pallas": the local
-    accumulate runs the Pallas padded-channels kernel (the production TPU
-    deposit) and the ppermute/fold collectives on its planes still equal
-    the single-device pad-and-fold at reduction-order level (code-review
-    r5: the sharded path previously hardcoded the XLA accumulate)."""
-    import dataclasses
-
-    from jax.sharding import PartitionSpec as P
-    from jax import shard_map
-
-    from picles_tpu.ops import pic
-
-    model = _model(nx=32, ny=24)
-    model.config = dataclasses.replace(model.config,
-                                       scatter_mode="dense_pallas",
-                                       pallas_interpret=True)
-    assert model.resolved_config().scatter_mode == "dense_pallas"
-    mesh = make_mesh(shape=(4, 2))
-    sharded = ShardedWaveGrowth2D(model, mesh)
-    stats = model.grid.stats
-    halo = model.config.halo
-
-    rng = np.random.default_rng(7)
-    nx, ny = 32, 24
-    (xl, xh), (yl, yh) = pic.normalize_halo(halo)
-    xr = jnp.asarray(rng.uniform(-xl, xh - 0.1, (nx, ny)), jnp.float32)
-    yr = jnp.asarray(rng.uniform(-yl, yh - 0.1, (nx, ny)), jnp.float32)
-    ch = jnp.asarray(rng.uniform(0.1, 1.0, (nx, ny, 3)), jnp.float32)
-    act = jnp.asarray(rng.random((nx, ny)) > 0.1)
-
-    S_ref, _ = pic.scatter_dense(xr, yr, ch, act, stats, halo)
-
-    def local(xr, yr, ch, act):
-        S, _ = sharded._scatter_sharded(xr, yr, ch, act)
-        return S
-
-    f = shard_map(local, mesh=mesh,
-                  in_specs=(P("x", "y"), P("x", "y"), P("x", "y", None),
-                            P("x", "y")),
-                  out_specs=P("x", "y", None), check_vma=False)
-    S_sh = jax.jit(f)(xr, yr, ch, act)
-    np.testing.assert_allclose(np.asarray(S_sh), np.asarray(S_ref),
-                               rtol=2e-5, atol=2e-5)
-
-
 def test_sharded_full_production_config_matches_single_device():
-    """Full production TPU kernel stack (pallas advance + dense_pallas
-    deposit + carry dt), interpret mode, sharded vs single-device."""
+    """Full production GPU stack (Triton advance + dense deposit + carried
+    dt, directional halo), interpret mode, sharded vs single-device."""
     grid = cartesian_box(100e3, 32, 100e3, 24, periodic_boundary=(True, True))
     cfg = WaveGrowth2DConfig(periodic_boundary=True, advance_mode="pallas",
-                             scatter_mode="dense_pallas",
-                             dt_reset_mode="carry", pallas_interpret=True)
+                             dt_reset_mode="carry", halo=((0, 3), (0, 3)),
+                             pallas_interpret=True)
     model = WaveGrowth2D(grid, constant_winds(10.0, 5.0), _settings(),
                          config=cfg)
     mesh = make_mesh(devices=jax.devices()[:4], shape=(2, 2))

@@ -104,7 +104,7 @@ def test_convert_store_to_tuple():
 def test_storeless_run_matches_stored_and_stays_o_state():
     """The storeless path (step_n_quiet fori_loop) must reach the same final
     state as the scan-with-outputs path while never materializing the
-    [n, nx, ny, 3] history (VERDICT r2: a 6-day 1536^2 run through step_n
+    [n, nx, ny, 3] history (a 6-day 1536^2 run through step_n
     would stack ~24 GB of unread states)."""
     import jax
 
@@ -127,7 +127,7 @@ def test_storeless_run_matches_stored_and_stays_o_state():
 
 
 def test_storeless_wall_time_limit_enforced():
-    """wall_time_limit must stop the storeless path too (VERDICT r2: it was
+    """wall_time_limit must stop the storeless path too (it was
     only checked on the store loop)."""
     sim = _sim(stop_time=600.0 * 400)  # 401 steps — plenty to outlast 0 s
     sim.wall_time_limit = 0.0          # first chunk exceeds immediately
@@ -172,8 +172,8 @@ def test_wall_time_limit_halts_stored_run_early():
 def test_stored_run_default_is_bounded_chunks():
     """store=True must NEVER dispatch one all-remaining step_n scan: the
     stacked scan output lives on device as [n, nx, ny, 3], so an unbounded
-    n is O(n_steps * state) of HBM (a 865-step 1536^2 endurance run would
-    stack ~24 GB against v5e's 16 GB).  Default chunking bounds every
+    n is O(n_steps * state) of device memory (a 865-step 1536^2 endurance
+    run would stack ~24 GB of history).  Default chunking bounds every
     dispatch at 64 steps (reference stores once per step and never stacks,
     run.jl:94-112)."""
     sim = _sim(stop_time=24 * 3600.0)   # 145 steps — production-shaped horizon
